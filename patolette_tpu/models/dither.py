@@ -10,7 +10,7 @@ Reference: /root/reference/lib/src/dither/riemersma.c. Semantics kept:
   * nearest-palette search in luminance-weighted space with channel scale
     factors sqrt(Rec2020 Y coefficients) (riemersma.c:37-42)
 
-TPU-native reformulation (SURVEY.md section 7, stage 8):
+Accelerator reformulation (SURVEY.md section 7, stage 8):
   * the serial recursive curve walk becomes a precomputed Hilbert
     permutation + gather (:mod:`patolette_tpu.ops.hilbert`)
   * the pixel chain becomes ``lax.scan`` with the error queue as carry; the
@@ -23,9 +23,9 @@ TPU-native reformulation (SURVEY.md section 7, stage 8):
 Measured quality-vs-segment curve (r4, CIELuv-MSE ratio vs the exact
 serial native oracle, 4-case battery mean): 0.993 at segment 4096, 0.992
 at 2048, 0.992 at 1024, 0.994 at 512, 0.990 at 256, 0.991 at 128 — the
-dither is seam-insensitive across the whole range, and on-chip wall time
-is also flat (417/409/459 ms at 4096/1024/512 for 8.3 MP: the scan is
-gather/compute-bound, not step-count-bound), so the 4096 default stands.
+dither is seam-insensitive across the whole range, so the 4096 default
+stands (its wall time against the segment length is not measured on the
+H100).
 """
 
 from __future__ import annotations
@@ -96,9 +96,8 @@ def _step_major_perm(perm, seg: int, lanes: int, n: int):
 
     Feeding ``stream.reshape(lanes, seg).T`` to ``lax.scan`` is a
     performance trap: XLA does not materialize the transpose, so every
-    step reads a strided column of the big stream — measured 319 ms of a
-    370 ms 8.3 MP scan just to FEED it (r4 ablation). Transposing the
-    int32 index array once (33 MB, ~ms) and gathering pixels directly
+    step reads a strided column of the big stream. Transposing the
+    int32 index array once (33 MB) and gathering pixels directly
     into step-major order removes that entirely; the (step, lane) ->
     pixel mapping is unchanged, so results stay bit-identical.
 
@@ -122,9 +121,8 @@ def _dither_stream_planar(ch2020, palette2020, valid, width, height,
     Same math as :func:`_dither_stream`, but pixels stay as three (N,)
     channel vectors: streams are (seg, lanes) per channel (step-major via
     :func:`_step_major_perm`), the error queue is (QUEUE, lanes) per
-    channel (queue depth in SUBLANES — the minor dim is the lane axis),
-    and the per-step distance matrix is built from rank-1 channel
-    broadcasts. No lane-padded (N, 3) intermediates.
+    channel, and the per-step distance matrix is built from rank-1
+    channel broadcasts. No interleaved (N, 3) intermediates.
     """
     n = width * height
 
@@ -145,26 +143,23 @@ def _dither_scan_core(xs, palette2020, valid, perm2, n, lanes):
     """Step-major dither scan shared by the planar and packed feeds.
 
     ``xs``: (seg, 3, lanes) linear-Rec2020 stream. One stacked op per
-    stage (a 3-channel-tuple body costs ~4x more per step — r4 A/B:
-    221 -> 54 ms of body time at 4K).
+    stage rather than a 3-channel-tuple body.
 
-    Step-body formulation (r5 on-chip A/B over a 4.15 MP strip, sync
-    times incl. the ~26 ms pull floor):
+    Step-body formulation:
 
-      * distance as VPU rank-1 outer products instead of a K=3-contraction
-        MXU matmul — exact f32, same math as ``precision="highest"``
-        (argmin agreement 0.9996 on random data; flips are rounding-order
-        ties). The bf16 default matmul is INADMISSIBLE (38% of argmins
-        flip); "high" still flips 5.7%.
+      * distance as rank-1 outer products instead of a K=3-contraction
+        matmul — exact f32, same math as ``precision="highest"``. A
+        reduced-precision product is INADMISSIBLE: bf16 products flip a
+        large share of the argmins (how many TF32 would flip on the H100
+        is not measured).
       * palette selection as a one-hot (K, lanes) matmul instead of a
-        per-step gather: gathers run ~5 elem/cycle on TPU, the one-hot
-        rides the MXU. ``precision="highest"`` keeps the selected colors
+        per-step gather. ``precision="highest"`` keeps the selected colors
         (and so the diffused error) exact — one-hot rows are exactly
-        representable, so the 3-pass product reconstructs f32 values.
+        representable, so the full-f32 product reconstructs f32 values.
+      * the error-queue sum is pinned to ``precision="highest"`` too: it
+        carries the diffused error into every step.
 
-      mm_highest+gather 63.8 ms | outer+gather 66.5 | mm_highest+onehot
-      42.7 | outer+onehot 41.9 (chosen) — a ~2.3x cut of the scan-core
-      time net of the sync floor (37 -> 16 ms per 4.15 MP strip).
+      Which formulation is fastest on the H100 is not measured.
     """
     dtype = xs.dtype
     chan_wv = jnp.asarray([R_WEIGHT, G_WEIGHT, B_WEIGHT], dtype)
@@ -178,7 +173,9 @@ def _dither_scan_core(xs, palette2020, valid, perm2, n, lanes):
 
     def step(queues, px):
         # queues: (3, QUEUE, lanes); px: (3, lanes)
-        corrected = px + jnp.einsum("q,cql->cl", qwv, queues)
+        corrected = px + jnp.einsum(
+            "q,cql->cl", qwv, queues, precision="highest"
+        )
         q = corrected * chan_wv[:, None]
         d = ps2[:, None] - 2.0 * (
             pa[:, None] * q[0][None, :]
@@ -193,7 +190,7 @@ def _dither_scan_core(xs, palette2020, valid, perm2, n, lanes):
         return queues, idx
 
     queues0 = jnp.zeros((3, QUEUE, lanes), dtype)
-    # unroll=8: amortize TPU scan-step overhead (see _dither_stream)
+    # unroll=8: amortize per-step scan overhead (not measured on the H100)
     _, idx_stream = jax.lax.scan(
         step, queues0, xs, unroll=8
     )  # (seg, lanes)
@@ -221,9 +218,9 @@ def riemersma_dither_packed_u8(channels_u8, palette_working, valid,
                                width, height, color_space, segment=4096):
     """uint8-source dither with a SINGLE packed gather.
 
-    The three (N,) f32 channel gathers into Hilbert order are the scan's
-    dominant cost (~58 ms each at 8.3 MP, index-pattern-independent —
-    see _step_major_perm). For uint8 sources the channels pack losslessly
+    The three (N,) f32 channel gathers into Hilbert order are a large
+    share of the scan's non-step cost (see _step_major_perm). For uint8
+    sources the channels pack losslessly
     into one (N,) uint32, so ONE gather reorders the image and the
     sRGB -> linear Rec2020 conversion runs on the already-permuted
     step-major arrays.

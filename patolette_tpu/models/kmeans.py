@@ -1,6 +1,6 @@
 """Weighted Lloyd KMeans palette refinement.
 
-TPU-native equivalent of the reference's modified-faiss clustering path
+Accelerator equivalent of the reference's modified-faiss clustering path
 (/root/reference/lib/src/palette/refine.c:165-224 ->
 /root/reference/lib/faiss/faiss/Clustering.cpp):
 
@@ -9,7 +9,7 @@ TPU-native equivalent of the reference's modified-faiss clustering path
   * subsampling to ``k * max_points_per_centroid`` with
     ``max_points_per_centroid = max(max_samples, 256^2) / k``
     (refine.c:77-90, Clustering.cpp:309-319)
-  * per-iteration exact assignment (IndexFlatL2.search -> here an MXU
+  * per-iteration exact assignment (IndexFlatL2.search -> here a matmul
     distance argmin), weighted centroid update (compute_centroids,
     Clustering.cpp:135-204), empty-cluster splitting with eps = 1/1024
     symmetric perturbation (Clustering.cpp:216-262)

@@ -8,10 +8,10 @@ cluster on its own weighted principal axis and picks the 512-bucket cut that
 maximizes the between-cluster objective ``sum_ch csl^2/sl + csr^2/sr``
 (local.c:102-177).
 
-TPU-native reformulation (SURVEY.md section 7, stage 4):
+Accelerator reformulation (SURVEY.md section 7, stage 4):
   * index-list clusters (reference cluster.h:40-52) become a dense ``(N,)``
     int32 labels array; every gather becomes a masked reduction and every
-    bucket histogram a one-hot segment matmul on the MXU.
+    bucket histogram a one-hot segment matmul.
   * the candidate split of a cluster is summarized by
     ``(mu, axis, pmin, pmax, split_bucket)`` so applying a cached split later
     is a recomputation of bucket ids, bit-identical to candidate time.
@@ -75,9 +75,9 @@ def _psum(x, axis_name):
 def _rank_map(ids, size: int):
     """Scatter-free inverse map: ``out[c] = j`` where ``ids[j] == c``, else
     ``len(ids)``. Built as a dense (size, C) compare + argmax — ``ids`` has
-    at most ~24 entries, and the TPU backend's scatter emitter SIGABRTs on
-    the variadic scatter XLA makes of the .at[].set formulation inside the
-    LQ loop (scatter_emitter.cc CHECK operand_indices.size() == 1)."""
+    at most ~24 entries, and XLA combines the .at[].set formulation inside
+    the LQ loop into a variadic scatter, which some backends' scatter
+    emitters reject (scatter_emitter.cc CHECK operand_indices.size() == 1)."""
     C = ids.shape[0]
     eq = jnp.arange(size, dtype=jnp.int32)[:, None] == ids[None, :]
     j = jnp.argmax(eq, axis=1).astype(jnp.int32)
@@ -94,8 +94,7 @@ def _candidates_segmented(colors, w, labels, ids, p, bucket_count=BUCKET_COUNT,
     pixel is keyed by which candidate (if any) it belongs to, so every
     statistic is ONE segment reduction over N instead of ``C`` masked
     full-array passes (the r2 formulation vmapped a masked ``_candidate``
-    per cluster — ~100 O(N) passes per round; this is ~4, measured 607 ms
-    -> <100 ms for the 262144-sample headline LQ).
+    per cluster — ~100 O(N) passes per round; this is ~4).
 
     ``ids``: (C,) cluster ids; entries equal to ``p`` are dead slots that
     segment zero pixels and return zero benefit (their outputs are dropped
@@ -114,10 +113,10 @@ def _candidates_segmented(colors, w, labels, ids, p, bucket_count=BUCKET_COUNT,
     split), instead of re-gathering 5 per-cluster tables over all pixels.
 
     Per-pixel values from per-candidate tables are computed as broadcast
-    compare + masked sum, NOT ``tab[cand]`` gathers: a (N,) gather from
-    even a tiny table runs at ~5 elements/cycle on TPU (measured 1.25 ms
-    per gather at N=262144 — gathers were ~10 of the 14 ms/round in r3's
-    first cut), while the (N, C) compare form is ordinary vector code.
+    compare + masked sum, NOT ``tab[cand]`` gathers: the (N, C) compare
+    form is ordinary fused vector code, while a gather per table per round
+    is a separate memory-bound pass (gather vs compare not measured on the
+    H100).
     """
     C = ids.shape[0]
     dtype = colors.dtype
@@ -188,12 +187,11 @@ def _candidates_segmented(colors, w, labels, ids, p, bucket_count=BUCKET_COUNT,
     # split-independent constant.
     #
     # Layout: keying one segment matmul on cand * bucket_count + bucket
-    # would make the one-hot (N, C*512+1) — ~9 GB of HBM write+read per
-    # round at the headline shapes, measured 16 ms/round on a v5e (and a
-    # VMEM-tiled Pallas variant loses to grid-step overhead at F=5). So the
-    # candidate axis rides the FEATURE lanes instead: features widen to
-    # (N, C*5) columns (zero except the pixel's own candidate block) and
-    # the one-hot shrinks to (N, 512) — ~25x less traffic, all XLA.
+    # would make the one-hot (N, C*512+1) — ~9 GB of device-memory
+    # traffic per round at the headline shapes. So the candidate axis rides
+    # the FEATURE columns instead: features widen to (N, C*5) columns (zero
+    # except the pixel's own candidate block) and the one-hot shrinks to
+    # (N, 512) — ~25x less traffic, all XLA.
     buckets = M.bucketize_linear(
         proj, bucket_count, from_tab(pmin), from_tab(pmax)
     )
@@ -364,8 +362,8 @@ def lq_quantize(colors, weights, init_labels, k0, palette_size: int,
                 # side bit was computed at candidate time, so this is a pure
                 # mask — no per-pixel projection or table lookups. The rank
                 # of a pixel's cluster among this round's splits comes from
-                # a (N, bsz) compare (a (p,)-table gather runs ~250x slower
-                # on TPU; see _candidates_segmented docstring).
+                # a (N, bsz) compare, not a (p,)-table gather (see
+                # _candidates_segmented docstring).
                 sel_v = jnp.where(valid, sel, p)  # invalid picks -> dead id
                 eqs = st.labels[:, None] == sel_v[None, :]  # (N, bsz)
                 jpix = jnp.argmax(eqs, axis=1).astype(jnp.int32)
@@ -397,8 +395,8 @@ def lq_quantize(colors, weights, init_labels, k0, palette_size: int,
 
                 # State write-back as gathers from the rank map instead of
                 # same-index scatters: XLA's scatter combiner would merge
-                # those into one variadic scatter, which the TPU backend's
-                # scatter emitter rejects (scatter_emitter.cc CHECK
+                # those into one variadic scatter, which some backends'
+                # scatter emitters reject (scatter_emitter.cc CHECK
                 # operand_indices.size() == 1 -> compile SIGABRT).
                 rk = _rank_map(ids2b_w, p + 1)[:p]
                 has = rk < C2

@@ -1,13 +1,13 @@
 // patolette_tpu native oracle library.
 //
 // Serial C++ implementations with the exact semantics of the reference's
-// serial subsystems, used as golden oracles for the TPU kernels and as
+// serial subsystems, used as golden oracles for the device programs and as
 // host-side fallbacks. Written from the documented semantics
 // (/root/reference/lib/src/dither/riemersma.c traversal + queue rules,
 // /root/reference/src/patolette/patolette.pyx raster scans) — not a copy;
 // data layout, state handling and structure are our own.
 //
-// Build: make -C patolette_tpu/native   (produces liboracle.so)
+// Build: compiled at first use by native/__init__.py (liboracle-<hash>.so).
 // ABI: plain C, consumed via ctypes (native/__init__.py).
 
 #include <cstddef>
@@ -22,10 +22,9 @@
 #include <immintrin.h>
 #endif
 
-// Build-time source fingerprint (injected by the Makefile from
-// sha256(oracle.cpp)); the ctypes loader compares it against the source on
-// disk and rebuilds on mismatch, so a stale committed .so can never be
-// silently used.
+// Build-time source fingerprint (injected by the loader from
+// sha256(oracle.cpp)); the ctypes loader checks it against the source on
+// disk, so a stale library can never be silently used.
 #ifndef ORACLE_SOURCE_HASH
 #define ORACLE_SOURCE_HASH "unknown"
 #endif
@@ -356,8 +355,7 @@ void lut_map_threaded(const uint8_t* rgb, long n, const T* lut, int32_t* out,
 // Split pack / gather halves: the 24-bit pack depends only on the image, so
 // the pipeline runs it in a BACKGROUND thread while the device computes the
 // palette + LUT; once the table arrives, only the latency-bound gather
-// remains on the critical path (VERDICT r4 next #1 — the pack half of the
-// 100 MP host map was ~60 ms of serial wall).
+// remains on the critical path (VERDICT r4 next #1).
 // ---------------------------------------------------------------------------
 
 void pack_codes_range(const uint8_t* rgb, long lo, long hi, uint32_t* out) {
@@ -385,9 +383,8 @@ void lut_map_codes_range(const uint32_t* codes, long lo, long hi,
 #if defined(__x86_64__)
 // Non-temporal stores: the (N,) int32 output is written once and not
 // re-read, so regular stores pay a read-for-ownership on every cache line
-// (400 MB of extra read traffic at 100 MP — the map is memory-bound, not
-// compute-bound: the split-vs-fused A/B on the 2-core host moved only
-// ~15 ms until NT stores cut the RFO half of the output traffic).
+// (400 MB of extra read traffic at 100 MP; the map is memory-bound, not
+// compute-bound).
 template <typename T>
 __attribute__((target("avx512f")))
 void lut_map_codes_range_avx512(const uint32_t* codes, long lo, long hi,
@@ -499,7 +496,7 @@ void oracle_lut_map_codes_i32(const uint32_t* codes, long n,
 // RLE decode of the LUT wire format (ops/lut.py): packed[i] =
 // (pos << 8) | value with positions strictly ascending; run i covers
 // [pos_i, pos_{i+1}) and the last run extends to table_size. memset per run
-// replaces numpy's np.repeat (measured 15 ms -> ~2 ms at 520k runs/16.7 MB).
+// replaces numpy's np.repeat.
 void oracle_rle_decode_u8(const uint32_t* packed, long nruns, uint8_t* out,
                           long table_size, int nthreads) {
     if (nruns <= 0) return;

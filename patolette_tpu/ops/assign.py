@@ -1,19 +1,19 @@
-"""Nearest-centroid assignment: MXU distance-matrix argmin.
+"""Nearest-centroid assignment: distance-matrix argmin.
 
-TPU-native replacement for both kd-tree uses in the reference:
+Vectorized replacement for both kd-tree uses in the reference:
   * FLANN batch palette mapping (/root/reference/lib/src/palette/nearest.c:150-209)
   * faiss ``IndexFlatL2.search`` inside KMeans
     (/root/reference/lib/faiss/faiss/Clustering.cpp:446-452)
 
 For k <= a few thousand centroids, ``argmin_k (|x|^2 - 2 x.C^T + |c|^2)``
-over a (tile, k) product is the TPU-shaped formulation — the matmul rides the
-MXU and there is no pointer-chasing data structure (SURVEY.md section 7).
+over a (tile, k) product is the accelerator formulation — a dense product
+and a reduction, no pointer-chasing data structure (SURVEY.md section 7).
 
 The distance matrix is never materialized for the full pixel array: pixels
 stream through in chunks under ``lax.scan`` (XLA) so the transient is
-``chunk x k``. (A fused Pallas variant was A/B'd on chip in rounds 2-3 and
-lost to this XLA formulation — Mosaic pads the 3-wide operand to 128
-lanes — so it was removed; see git history.)
+``chunk x k``. (A hand-written fused variant lost to this XLA formulation
+on the accelerator this was first built for and was removed; see git
+history.)
 """
 
 from __future__ import annotations
@@ -84,9 +84,8 @@ def assign_planar(channels, centers, valid=None, chunk=_PLANAR_CHUNK,
 
     Same semantics as :func:`assign`, formulated for the planar image
     layout: the distance matrix of a chunk is built from three rank-1
-    broadcast products ``x_ch (chunk,1) * c_ch (1,K)`` on the VPU, so no
-    lane-padded ``(N, 3)`` intermediate ever exists (TPU pads the minor
-    dim to 128 lanes — 42.7x for dim 3). K <= a few thousand.
+    broadcast products ``x_ch (chunk,1) * c_ch (1,K)``, so no interleaved
+    ``(N, 3)`` intermediate ever exists. K <= a few thousand.
     """
     a, b, c = channels
     n = a.shape[0]

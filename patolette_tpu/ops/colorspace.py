@@ -1,20 +1,19 @@
 """Fused, vectorized color-space transforms.
 
-TPU-native reimplementation of the reference's per-row C converters
+Vectorized reimplementation of the reference's per-row C converters
 (/root/reference/lib/src/color/{sRGB,xyz,CIELuv,ICtCp,rec2020,eotf}.c) as
 pure ``jnp`` functions. Everything is elementwise + 3x3 matmuls, so a
-single ``jit`` fuses each composite transform into one VPU pass over the
+single ``jit`` fuses each composite transform into one pass over the
 pixel array.
 
 Every transform accepts EITHER an ``(..., 3)`` array OR a channel-planar
-3-tuple of same-shaped arrays, returning the matching form. The planar form
-is the only fast one for full images on TPU: the hardware tiles the minor
-dimension to 128 lanes, so an ``(N, 3)`` f32 image is physically padded
-42.7x (f32[1e8,3] -> 51.2 GB), while three ``(N,)`` vectors are compact.
-(The reference stores colors column-major / Fortran-order for the same
-data-locality reason, patolette.c:126-129.) The 3x3 "matmuls" in planar
-form are nine explicit f32 fused multiply-adds — full precision, no MXU
-rounding, so ``precision="highest"`` concerns only the array form.
+3-tuple of same-shaped arrays, returning the matching form. Full images use
+the planar form: each channel is read with unit stride (coalesced), and no
+interleaved copy of the image is ever built. (The reference stores colors
+column-major / Fortran-order for the same data-locality reason,
+patolette.c:126-129.) The 3x3 "matmuls" in planar form are nine explicit
+f32 multiply-adds — full precision, never a reduced-precision matrix
+unit — so ``precision="highest"`` concerns only the array form.
 
 Conventions (identical to the reference):
   * sRGB values are gamma-encoded in [0, 1]; gamma decode/encode clamp to
@@ -137,10 +136,11 @@ def _map1(f, x):
 
 
 def _matmul(x, m):
-    # precision='highest': TPU MXU would otherwise run f32 matmuls at
-    # bf16-ish precision, which costs ~0.5 absolute error on CIELuv-scale
-    # coordinates. These (N,3)@(3,3) products are bandwidth-bound, so full
-    # f32 is free. The planar branch is nine explicit f32 FMAs (exact).
+    # precision='highest': at the default an f32 matmul may run at reduced
+    # precision (TF32 on the GPU, bf16 passes elsewhere), which costs up to
+    # ~0.5 absolute error on CIELuv-scale coordinates. These (N,3)@(3,3)
+    # products are bandwidth-bound, so full f32 is free. The planar branch
+    # is nine explicit f32 multiply-adds (exact).
     if _is_planar(x):
         a, b, c = x
         return tuple(

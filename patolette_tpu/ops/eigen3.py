@@ -1,11 +1,12 @@
 """Batched closed-form symmetric 3x3 eigendecomposition.
 
-TPU-native replacement for the reference's LAPACK ``dsyev_`` path
+Vectorized replacement for the reference's LAPACK ``dsyev_`` path
 (/root/reference/lib/src/math/eigen.c:83-140) and the PCA wrappers
 (/root/reference/lib/src/math/pca.c:122-149). A 3x3 symmetric eigenproblem
 has a closed form (trigonometric solution of the characteristic cubic), which
 vectorizes over arbitrarily many matrices — every cluster/cell PCA in the
-pipeline becomes one fused VPU pass instead of a LAPACK call per cell.
+pipeline becomes one fused elementwise pass instead of a LAPACK call per
+cell.
 
 Only the quantities the reference consumes are produced: the principal axis
 (unit eigenvector of the largest eigenvalue) and the explained-variance ratio
@@ -82,7 +83,7 @@ def principal_axis(a):
     eye = jnp.eye(3, dtype=a.dtype)
     a_mid = a - mid[..., None, None] * eye
     a_lo = a - lo[..., None, None] * eye
-    m = a_mid @ a_lo
+    m = jnp.matmul(a_mid, a_lo, precision="highest")
 
     col_norm2 = jnp.sum(m * m, axis=-2)  # (..., 3) squared column norms
     best = jnp.argmax(col_norm2, axis=-1)

@@ -1,7 +1,7 @@
 """Vectorized Hilbert-curve indexing.
 
 The reference walks the curve with a serial recursive traversal
-(/root/reference/lib/src/dither/riemersma.c:176-257). On TPU we instead
+(reference riemersma.c:176-257). Here we instead
 compute each pixel's position along the curve with the standard
 iterative bit-manipulation transform (Lam & Shapiro style, the classic
 ``xy -> d`` rotation loop), fully vectorized over all pixels, then argsort —

@@ -1,13 +1,13 @@
 """Weighted moment accumulation, axis projection and bucket sorting.
 
-This module is the TPU-shaped reformulation of the reference's statistics
+This module is the accelerator reformulation of the reference's statistics
 machinery:
 
   * ``SORT_axis_sort`` (/root/reference/lib/src/quantize/sort.c:12-93) —
     projection becomes a ``(N,3) @ (3,)`` matmul, binning a fused clip/floor.
   * ``CELLS_preprocess`` (/root/reference/lib/src/quantize/cells.c:53-139) —
-    per-bucket moment accumulation becomes a one-hot segment matmul on the
-    MXU: ``onehot(buckets).T @ features`` with features
+    per-bucket moment accumulation becomes a one-hot segment matmul:
+    ``onehot(buckets).T @ features`` with features
     ``[w, w*x, w*|x|^2, w*x x^T]``.
   * ``PCA_perform_PCA`` inputs (/root/reference/lib/src/math/pca.c:62-101) —
     weighted covariance from the same moment tuple.
@@ -38,13 +38,10 @@ IDX_WRS = slice(5, 11)
 
 _DEFAULT_CHUNK = 32768
 
-# A VMEM-resident Pallas segment kernel was A/B'd inside the real LQ loop
-# on chip (round 3) and LOST to this XLA one-hot formulation (1.05 s vs
-# 0.57 s LQ stage): at F=5 the MXU pads features to 128 lanes, so the
-# kernel is grid-step-overhead-bound; meanwhile the LQ reformulation
-# (candidate axis on feature lanes, local_q._candidates_segmented) shrank
-# the one-hot to (N, 512) and removed the HBM-traffic motivation. Removed
-# (VERDICT r2 missing #5 adjudication); see git history.
+# The segment sums are plain XLA (one-hot matmul under a scan). A
+# hand-written segment kernel lost to this formulation on the accelerator
+# this was first built for and was removed (see git history); whether one
+# pays on the H100 is not measured.
 
 
 def moment_features(colors, weights=None, shift=None):
@@ -93,8 +90,9 @@ def segment_moments(
 ):
     """Per-segment moment tuple ``(num_segments, 11)``.
 
-    Implemented as a chunked one-hot matmul (MXU) rather than scatter-add,
-    which TPUs execute poorly. Each chunk contributes
+    Implemented as a chunked one-hot matmul rather than scatter-add (a
+    deterministic summation order; scatter-add vs matmul not measured on
+    the H100). Each chunk contributes
     ``onehot(ids).T @ feats``; chunks are scanned with an f32 accumulator so
     the transient one-hot never exceeds ``chunk * num_segments`` elements.
     """
@@ -111,10 +109,11 @@ def segment_matmul(feats, segment_ids, num_segments, chunk=_DEFAULT_CHUNK,
 
     Zero-pads to a chunk multiple (padding rows carry zero features, so the
     segment they land in is irrelevant). With ``axis_name`` (inside
-    shard_map) the per-shard (S, F) partials ride a ``psum`` over ICI.
+    shard_map) the per-shard (S, F) partials ride a ``psum``.
 
     ``fast=True`` runs the one-hot matmul in bf16 with f32 accumulation
-    (1 MXU pass instead of the 6 bf16 passes of a full-f32 matmul). One-hot
+    (bf16 operands by design, so the result does not depend on the
+    device's default f32 matmul precision). One-hot
     entries are exact in bf16; the ~0.4% relative feature rounding is fine
     for mean-shifted statistics that only drive split decisions (the LQ hot
     loop) but NOT for the GQ moment cache, which keeps full precision.

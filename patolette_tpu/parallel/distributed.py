@@ -4,7 +4,7 @@ The reference is strictly single-process (SURVEY.md section 2.3); this
 module is the framework north-star analogue: the same ``shard_map``
 pipeline as :mod:`patolette_tpu.parallel.mesh`, with the 1-D ``pixels``
 mesh laid over EVERY process's devices so the moment/KMeans ``psum``s ride
-ICI within a host and DCN across hosts. Only the ~11-float moment tuples
+the device interconnect within a host and the network across hosts. Only the ~11-float moment tuples
 and the (P, 3) palette ever cross process boundaries.
 
 Launch (one command per host, standard JAX multi-controller):
@@ -23,7 +23,8 @@ reads back its own rows (:func:`local_shard`).
 
 CI exercises this very path as 2 CPU processes x 4 virtual devices with
 Gloo collectives (tests/test_distributed.py) — process-spanning psum
-included; no TPU pod is required for the logic to be validated.
+included; no multi-host cluster is required for the logic to be
+validated.
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ def init_distributed(coordinator_address: str, num_processes: int,
 
 
 def make_global_mesh():
-    """1-D ``pixels`` mesh over all processes' devices (ICI + DCN)."""
+    """1-D ``pixels`` mesh over all processes' devices."""
     return PM.make_mesh(jax.devices())
 
 
@@ -83,7 +84,7 @@ def quantize_palette_distributed(mesh, palette_size: int, **kw):
     """The sharded palette pipeline on a (possibly multi-process) mesh.
 
     Identical program to ``mesh.quantize_palette_sharded`` — shard_map is
-    process-count-agnostic; the psum schedule simply spans DCN when the
+    process-count-agnostic; the psum schedule simply spans hosts when the
     mesh does."""
     return PM.quantize_palette_sharded(mesh, palette_size, **kw)
 

@@ -4,7 +4,8 @@ Mirrors the reference option struct ``patolette__QuantizationOptions``
 (/root/reference/lib/include/patolette.h:13-20, defaults at
 /root/reference/lib/src/patolette.c:107-119) plus the Python-level
 ``tile_size`` saliency knob (/root/reference/src/patolette/patolette.pyx:332-343),
-extended with TPU-native fields (mesh/sharding, sampling caps, dither tiling).
+extended with fields of its own (mesh/sharding, sampling caps, dither
+tiling).
 """
 
 from __future__ import annotations
@@ -65,8 +66,8 @@ class QuantizeOptions:
     verbose:
         Structured stage logging.
 
-    TPU-native fields
-    -----------------
+    Extension fields
+    ----------------
     lq_max_samples:
         Deterministic-subsample cap for the GQ/LQ split-decision phase. The
         palette-search stages run on at most this many pixels (weights folded
@@ -77,10 +78,9 @@ class QuantizeOptions:
     lq_batch_splits:
         Clusters split per LQ round (top-B by benefit). 1 reproduces the
         reference's strictly sequential greedy; the default 8 splits the
-        top-8 per round (divergence S6). LQ wall time is dominated by the
-        per-round overhead, so batching is ~4.5x faster at 256 colors on
-        v5e (625 ms vs 2828 ms) with quality validated neutral
-        (tests/test_lq_batch.py).
+        top-8 per round (divergence S6). LQ runs ~8x fewer rounds, each a
+        few full passes over the samples, with quality validated neutral
+        (tests/test_lq_batch.py); the gain is not measured on the H100.
     dither_segment:
         Hilbert-curve segment length for the parallel dither scan. The error
         queue resets at segment seams (per-shard dither). 0 = fully serial

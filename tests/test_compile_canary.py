@@ -1,7 +1,7 @@
 """Compile-size canary: the LQ program's CPU lowering+compile must stay
-cheap. TPU compile cost tracks graph size; a blowup here flags a structural
-regression (scan-in-vmap-in-cond nesting, unrolled candidates, ...) before
-it costs an hour on the real compiler."""
+cheap. Accelerator compile cost tracks graph size; a blowup here flags a
+structural regression (scan-in-vmap-in-cond nesting, unrolled candidates,
+...) before it costs an hour on the GPU compiler."""
 
 import time
 

@@ -1,4 +1,4 @@
-"""Native oracle library tests + TPU-vs-oracle parity checks.
+"""Native oracle library tests + device-vs-oracle parity checks.
 
 Skips ONLY when the toolchain (g++/make) is genuinely absent. A present
 compiler with a failing build is a FAILURE, not a skip — round 2 shipped a
@@ -77,7 +77,7 @@ class TestNative:
         assert 0.25 < out.mean() < 0.55
 
     def test_tpu_dither_quality_parity_with_oracle(self):
-        """TPU segmented dither must match the exact serial reference-
+        """The segmented device dither must match the exact serial reference-
         semantics oracle in *quality* (mean luminance error), not bits."""
         rng = np.random.default_rng(2)
         img = rng.uniform(0, 1, (64 * 64, 3))
@@ -176,3 +176,41 @@ class TestCodesSplit:
 
         img = np.zeros((64, 3), np.uint8)
         assert LUT.CodesPrefetch(img).take() is None
+
+
+_CHILD = """
+import sys
+sys.path.insert(0, sys.argv[1])
+import native
+ok = native.available()
+print(ok, native.build_error(), native.library_path())
+sys.exit(0 if ok else 1)
+"""
+
+
+def test_concurrent_first_use_builds_once_and_both_load(tmp_path):
+    """Two processes hit an unbuilt library at once (pytest-xdist workers
+    do): the lock lets one compile, both load the finished file, and no
+    temporary file is left behind."""
+    import os
+    import subprocess
+    import sys
+
+    pkg = tmp_path / "native"
+    pkg.mkdir()
+    src_dir = os.path.dirname(native.__file__)
+    for name in ("__init__.py", "oracle.cpp"):
+        shutil.copy(os.path.join(src_dir, name), pkg / name)
+    procs = [
+        subprocess.Popen([sys.executable, "-c", _CHILD, str(tmp_path)],
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True)
+        for _ in range(2)
+    ]
+    outs = [p.communicate(timeout=600) for p in procs]
+    for p, (out, err) in zip(procs, outs):
+        assert p.returncode == 0, (out, err)
+        assert out.startswith("True None"), out
+    built = sorted(f.name for f in pkg.iterdir() if f.suffix != ".py")
+    want = os.path.basename(native.library_path())
+    assert built == sorted([".build.lock", "oracle.cpp", want]), built

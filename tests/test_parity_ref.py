@@ -195,7 +195,7 @@ def test_parity_battery_dither():
     serial reference-semantics dither (native oracle, riemersma.c), in the
     main battery rather than only tests/test_native.py (VERDICT r3 #8).
 
-    The TPU dither is segmented (error queue resets at seams) and the
+    The device dither is segmented (error queue resets at seams) and the
     oracle is strictly serial, so the per-case ceiling is the documented
     dither-quality band (test_native.py: within 15% luminance error);
     CIELuv-MSE ratios measured well inside it."""

@@ -245,7 +245,7 @@ class TestSaliencyPath:
 
 
 class TestUint8Input:
-    """uint8 sRGB input (TPU-native extension: quarter-width transfers)."""
+    """uint8 sRGB input (extension: quarter-width transfers)."""
 
     def test_uint8_matches_float(self):
         colors_f = _natural_image(seed=4)
